@@ -16,7 +16,8 @@ Mirrors the reference driver's CLI surface (programs/driver.cpp:566-657):
   -prof=DIR      capture a jax.profiler trace of the run into DIR (the
                  gperftools PROFILE hook analog, driver.cpp:542-544)
   --cpu          force the float64 CPU backend
-  -b=N           batch N identical scenarios (vmap) — TPU-native extension
+  -b=N           batch N identical scenarios (vmap) — an extension of the
+                 reference CLI
 
 Usage: python -m moby_tpu.cli.driver [flags] scene.xml
 """
@@ -78,10 +79,12 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
+    from .. import config
     from ..io import mobyxml, checkpoint
     from ..sim import stepper
     from ..utils import log as mlog
 
+    config.use_compile_cache()
     if opts["l"]:
         mlog.set_reporting_level(opts["l"])
         mlog.set_output(opts["lf"])

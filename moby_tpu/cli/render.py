@@ -1,6 +1,6 @@
 """`moby-render` / `moby-view` equivalent: headless trajectory visualization.
 
-The reference renders through OpenSceneGraph; in this headless TPU framework
+The reference renders through OpenSceneGraph; in this headless batched framework
 a trajectory (`moby-regress` format `.dat`) plus its scene render to a fully
 self-contained HTML file: an embedded-JSON canvas animation (orthographic
 side/top views, body outlines from their collision geometry), no external

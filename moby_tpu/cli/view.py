@@ -1,7 +1,7 @@
 """`moby-view` equivalent: simulate a scene and open the animated viewer.
 
 The reference's view binary (programs/view.cpp) opens an interactive
-OpenSceneGraph window on a trajectory. Headless-TPU analog: run the scene,
+OpenSceneGraph window on a trajectory. Headless analog: run the scene,
 render the self-contained HTML animation (`cli.render`), and open it in the
 default browser (skipped with --no-open or when no display/browser exists —
 the file path is always printed).

@@ -1,6 +1,6 @@
 """Scene compilation: a Moby-style scene -> static fixed-shape arrays.
 
-TPU-first design: where the reference keeps a pointer graph of bodies,
+Accelerator-first design: where the reference keeps a pointer graph of bodies,
 geometries and per-pair `ContactParameters` resolved at runtime
 (`src/ConstraintSimulator.cpp:82-155`), we compile the whole scene host-side
 into a `Scene` pytree of fixed-shape arrays:
@@ -29,12 +29,13 @@ scenarios is `vmap` over State.
 from __future__ import annotations
 
 import math
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, List, Optional
 
 import numpy as np
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .. import config as cfg
 from ..dynamics import model as amdl
@@ -143,6 +144,22 @@ def _kind_nslots(kind: int, vmax: int) -> int:
     raise ValueError(f"unknown kind {kind}")
 
 
+def static_field(default=None):
+    """A `pytree_dataclass` field kept out of the pytree's children: it is
+    part of the treedef (aux data), so a change of value retraces."""
+    return dataclasses.field(default=default, metadata={"static": True})
+
+
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree. Fields made with
+    `static_field` are aux data; every other field is a child (None
+    children are empty subtrees). `obj.replace(**changes)` returns a copy
+    with the given fields changed."""
+    cls = dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(cls)
+
+
 class ABEntry:
     """Static per-articulated-body metadata (not a pytree leaf)."""
 
@@ -154,7 +171,7 @@ class ABEntry:
         self.v_off = v_off    # offset into State.qd_art
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scene:
     """Static compiled scene. All arrays fixed-shape; `vmap`-compatible."""
 
@@ -224,17 +241,17 @@ class Scene:
     drag_ang: jnp.ndarray            # (nb,) angular drag coefficient
 
     # ---- static metadata
-    nb: int = struct.field(pytree_node=False, default=0)
-    ng: int = struct.field(pytree_node=False, default=0)
-    n_pose_slots: int = struct.field(pytree_node=False, default=0)
-    ngc: int = struct.field(pytree_node=False, default=0)
-    nq_art: int = struct.field(pytree_node=False, default=0)
-    nv_art: int = struct.field(pytree_node=False, default=0)
-    n_pairs: int = struct.field(pytree_node=False, default=0)
-    n_contacts: int = struct.field(pytree_node=False, default=0)
-    n_friction_rows: int = struct.field(pytree_node=False, default=0)
-    n_limits: int = struct.field(pytree_node=False, default=0)
-    vmax: int = struct.field(pytree_node=False, default=0)
+    nb: int = static_field(0)
+    ng: int = static_field(0)
+    n_pose_slots: int = static_field(0)
+    ngc: int = static_field(0)
+    nq_art: int = static_field(0)
+    nv_art: int = static_field(0)
+    n_pairs: int = static_field(0)
+    n_contacts: int = static_field(0)
+    n_friction_rows: int = static_field(0)
+    n_limits: int = static_field(0)
+    vmax: int = static_field(0)
     geom_faces: jnp.ndarray = None   # (ng, FMAX, 3) int32 triangle indices
     geom_nfaces: jnp.ndarray = None  # (ng,)
     # hull candidate directions for exact convex-convex penetration
@@ -245,34 +262,34 @@ class Scene:
     geom_nhe: jnp.ndarray = None           # (ng,)
     # all contacts have mu >= 100 -> the no-slip MLCP model
     # (ImpactConstraintHandler::apply_model's `all_inf` branch, :123-131)
-    use_noslip: bool = struct.field(pytree_node=False, default=False)
+    use_noslip: bool = static_field(False)
     # any contact requests the true friction cone (NK = UINF) -> the NQP
     # model for the whole problem (use_qp_solver, :629-640)
-    use_nqp: bool = struct.field(pytree_node=False, default=False)
+    use_nqp: bool = static_field(False)
     # contact slots disagree on the impact model -> per-island (per connected
     # constraint group) model routing at runtime, the reference's per-group
     # dispatch (`apply_model`, src/ImpactConstraintHandler.cpp:113-151)
-    mixed_models: bool = struct.field(pytree_node=False, default=False)
-    has_compliant: bool = struct.field(pytree_node=False, default=False)
+    mixed_models: bool = static_field(False)
+    has_compliant: bool = static_field(False)
     # constraint-stabilization iteration cap (XML
     # constraint-stabilization-max-iterations; 0 disables)
-    stab_max_iters: int = struct.field(pytree_node=False, default=4)
+    stab_max_iters: int = static_field(4)
     # legacy velocity-first integration ordering (the stepper that produced
     # some of the reference's golden trajectories, predating the current
     # position-first TimeSteppingSimulator::do_mini_step): per step,
     # v <- impact(v + a*h) evaluated at q_k, then q <- q + v_plus * h
-    legacy_velocity_first: bool = struct.field(pytree_node=False, default=False)
-    arts: Any = struct.field(pytree_node=False, default=())      # tuple[ABEntry]
-    bilaterals: Any = struct.field(pytree_node=False, default=())  # tuple[Bilateral]
-    kind_groups: Any = struct.field(pytree_node=False, default=None)
-    body_names: Any = struct.field(pytree_node=False, default=None)
+    legacy_velocity_first: bool = static_field(False)
+    arts: Any = static_field(())      # tuple[ABEntry]
+    bilaterals: Any = static_field(())  # tuple[Bilateral]
+    kind_groups: Any = static_field(None)
+    body_names: Any = static_field(None)
     # (ng,) shape-only bounding radius (pair-pool broad-phase cull bound)
     geom_rmax: jnp.ndarray = None
     # any kind group is pooled (set_pair_pool): contact-slot pair/body
     # identity is runtime data (Contacts.s1/s2/pair), islands collapse to
     # one group, and the static slot_s1/s2/pair tables are placeholders
     # for the pooled block
-    has_dyn_slots: bool = struct.field(pytree_node=False, default=False)
+    has_dyn_slots: bool = static_field(False)
 
     @property
     def n_vars(self) -> int:
@@ -289,7 +306,7 @@ class Scene:
         return self.n_vars + self.n_ineq
 
 
-@struct.dataclass
+@pytree_dataclass
 class State:
     """Dynamic simulation state (one scenario)."""
 
@@ -561,7 +578,7 @@ class SceneBuilder:
 
     def set_pair_pool(self, gtype_a, gtype_b, max_pairs: int):
         """Cap the contact slots of one geometry-kind class to `max_pairs`
-        runtime-culled candidate pairs — the TPU-native redesign of the
+        runtime-culled candidate pairs — the fixed-shape redesign of the
         reference's swept-sphere sweep-and-prune broad phase
         (/root/reference/src/CCD.cpp:702-990, sort_AABBs :903).
 
@@ -996,7 +1013,7 @@ class SceneBuilder:
 
         # pooled classes (set_pair_pool): a (kind, nslots) group whose
         # candidate count exceeds the pool cap shares cap*nslots runtime-
-        # assigned slots instead of per-pair static slots — the TPU redesign
+        # assigned slots instead of per-pair static slots — the fixed-shape redesign
         # of the reference's sweep-and-prune broad phase (CCD.cpp:702-990)
         group_of: dict = {}
         for p, (ga, gb, kind) in enumerate(pair_rows):

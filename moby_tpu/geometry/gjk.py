@@ -1,7 +1,7 @@
 """Batched GJK distance between convex vertex clouds.
 
 The reference uses GJK for generic convex pairs (src/GJK.cpp, via support
-points) and V-Clip for polyhedron pairs. This is the TPU-native form: fixed
+points) and V-Clip for polyhedron pairs. This is the fixed-shape form: fixed
 iteration count, fixed-size simplex, and the closest-point-on-simplex
 subproblem solved by enumerating all 15 vertex subsets with masked
 barycentric least squares (branch-free, vmappable) instead of Johnson's
@@ -186,7 +186,7 @@ _MTV_DIRS = _icosphere_dirs()  # (42, 3)
 
 def mtv(verts_a, nva, verts_b, nvb, refine_iters: int = 8):
     """Approximate minimum-translation vector for two overlapping convex
-    vertex clouds: the TPU-native stand-in for EPA (the reference's
+    vertex clouds: the fixed-shape stand-in for EPA (the reference's
     penetration path runs polyhedral V-Clip / Polyhedron::calc_signed_dist,
     src/Polyhedron.cpp).
 

@@ -978,7 +978,7 @@ def narrow_phase(scene: sc.Scene, pos, quat_b, tol):
             # runtime pair pool (set_pair_pool): prune the class's candidate
             # pairs to the `cap` nearest by the bounding-sphere distance
             # lower bound, then run the kernel on the selected (traced)
-            # pairs only — the TPU-native sweep-and-prune
+            # pairs only — the fixed-shape sweep-and-prune
             # (/root/reference/src/CCD.cpp:702-990 redesigned as one fused
             # vector pass + top_k instead of sorted axis lists).
             cap = grp["cap"]

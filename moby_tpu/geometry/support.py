@@ -6,7 +6,7 @@ plus `calc_signed_dist` witnesses (generic dispatch
 include/Moby/CCD.inl:3-81, generic contact generation CCD.inl:649-738;
 support-point virtuals e.g. src/CylinderPrimitive.cpp, src/ConePrimitive.cpp).
 
-TPU-native form: every primitive type gets a branch-free local-frame support
+Fixed-shape form: every primitive type gets a branch-free local-frame support
 function (sphere/box/cylinder/cone/torus closed-form, polyhedra as masked
 vertex-cloud argmax); a pair of *static* types compiles to one vectorized
 kernel (GJK distance + witnesses when separated, sampled-MTV penetration
@@ -543,7 +543,8 @@ def _fit_height(u, mask, w):
     A = Xm.T @ Xm + 1e-9 * jnp.eye(3, dtype=dtype)
     b_ = Xm.T @ wm
     # closed-form 3x3 solve (adjugate): keeps this off the LAPACK
-    # custom-call path that measures ~0.7 ms per small batch on TPU
+    # custom-call path, which was slow for small batches before the GPU
+    # port (not yet measured on the GPU)
     c0 = jnp.cross(A[1], A[2])
     c1 = jnp.cross(A[2], A[0])
     c2 = jnp.cross(A[0], A[1])
@@ -631,7 +632,7 @@ def make_support_hm_kernel(ta: int):
 
     Reference: `CCD::find_contacts_convex_heightmap`
     (include/Moby/CCD.inl:33,70; impl src/CCD.cpp) walks the convex's
-    lowest points over the terrain. TPU form: 3 fixed-point iterations of
+    lowest points over the terrain. Fixed-shape form: 3 fixed-point iterations of
     (support along -terrain-normal -> resample normal under that point),
     then the 5-slot tilted-support manifold of the generic convex kernel,
     each slot's depth measured against the bilinear height under it.
@@ -723,7 +724,7 @@ def make_support_tm_kernel(tb: int):
 
     Reference: the generic `find_contacts_generic` fallback
     (include/Moby/CCD.inl:81,649-738) samples mesh vertices against the
-    primitive and primitive surface points against the mesh. TPU form
+    primitive and primitive surface points against the mesh. Fixed-shape form
     (mirrors `_trimesh_convex`): mesh vertices vs the primitive's exact
     closed-form SDF (normals by autodiff), plus support probes of the
     primitive along the inward normals of the 4 nearest mesh faces tested

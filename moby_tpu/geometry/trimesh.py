@@ -1,13 +1,13 @@
 """Triangle-mesh geometry: point-triangle kernels, mesh mass properties,
 OBJ indexed-mesh loading.
 
-TPU-native counterpart of the reference's `TriangleMeshPrimitive`
+Fixed-shape counterpart of the reference's `TriangleMeshPrimitive`
 (src/TriangleMeshPrimitive.cpp:1-1169) and the mass-property integrals of
 `TessellatedPolyhedron` (src/TessellatedPolyhedron.cpp, after Mirtich's
 polyhedral mass properties): instead of a BVH walked pointer-by-pointer, a
 mesh is a fixed-shape (VMAX, 3) vertex table + (FMAX, 3) face-index table and
 every query is a masked reduction over all faces — the all-pairs "broad
-phase within the primitive" that maps onto the VPU/MXU instead of branchy
+phase within the primitive" that maps onto vector units instead of branchy
 tree descent.
 
 Meshes are assumed watertight with outward-oriented faces (the reference
@@ -157,7 +157,7 @@ def gather_triangles(verts_w, faces, ):
 
 # face-axis tile size: below this the (N, F) product materializes whole;
 # above, a lax.scan over face tiles bounds the working set to (N, CHUNK)
-# while keeping the identical closest-face result (the TPU-native stand-in
+# while keeping the identical closest-face result (the fixed-shape stand-in
 # for the reference's BVH descent, TriangleMeshPrimitive::get_BVH_root)
 FACE_CHUNK = 256
 

@@ -9,8 +9,8 @@ enter as generalized forces u (scene.ngc): wrenches on free bodies + joint
 torques on articulated dofs.
 
 This is the `f(x, u)` of the contact-implicit MPC north star
-(BASELINE.json): thousands of these batch per chip under `vmap`, shard over
-a TPU mesh, and differentiate end-to-end for iLQR/SQP.
+(BASELINE.json): thousands of these batch per device under `vmap`, shard
+over a device mesh, and differentiate end-to-end for iLQR/SQP.
 """
 
 from __future__ import annotations

@@ -40,9 +40,10 @@ class ILQRResult(NamedTuple):
 def _pd_inverse(M):
     """(Minv, pd_ok) for the Riccati Quu solve.
 
-    f32 (the TPU execution dtype) routes through the fused Gauss–Jordan with
-    the signed-pivot PD check — the LAPACK-style Cholesky + LU custom-calls
-    XLA otherwise emits were 51% of MPC-sweep device time at (256, 12, 12).
+    f32 (the accelerator execution dtype) routes through the fused
+    Gauss–Jordan with the signed-pivot PD check instead of the Cholesky +
+    LU custom-calls XLA otherwise emits, which a profile of the MPC sweep
+    found dominant before the GPU port (not yet measured on the GPU).
     f64 (CPU regression mode) keeps the LAPACK pair.
     """
     if jnp.dtype(M.dtype) == jnp.float32:
@@ -112,8 +113,8 @@ def ilqr(
 
         def bstep(carry, inp):
             # Jacobians are computed inside the scan step (never materialized
-            # as (H, nx, nx) stacks — the VMEM blow-up that made vmapped iLQR
-            # regress at large B)
+            # as (H, nx, nx) stacks — the on-chip memory blow-up that made
+            # vmapped iLQR regress at large B)
             Vx, Vxx, ok, dv1, dv2 = carry
             x_k, u_k = inp
             A_k, B_k = fxu_fn(x_k, u_k)

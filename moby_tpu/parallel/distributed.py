@@ -1,16 +1,15 @@
-"""Multi-host (DCN) scaling and solver-axis sharding of large LCP blocks.
+"""Multi-process scaling and solver-axis sharding of large LCP blocks.
 
 The reference is single-process/single-thread (SURVEY.md §2.6); these are the
 framework-native distributed components:
 
-* **Host axis (DCN) + scenario axis (ICI).** `initialize()` wraps
+* **Host axis + scenario axis.** `initialize()` wraps
   `jax.distributed.initialize` for multi-process launches;
-  `host_scenario_mesh()` builds a 2-D ("host", "scenario") mesh where the
-  host axis crosses processes (collectives ride DCN) and the scenario axis
-  stays within a slice (ICI). Scenario batches shard over the *flattened*
-  mesh — scenarios are independent, so the layout is pure data parallelism
-  and trajectories are shard-count invariant (asserted in tests on a virtual
-  8-device mesh).
+  `host_scenario_mesh()` builds a 2-D ("host", "scenario") mesh whose host
+  axis spans processes and whose scenario axis spans the devices of one
+  process. Scenario batches shard over the *flattened* mesh — scenarios are
+  independent, so the layout is pure data parallelism and trajectories are
+  shard-count invariant (asserted in tests on a virtual 8-device mesh).
 
 * **Solver axis for large LCP blocks.** When one complementarity block is
   too big for a chip (BASELINE.md scaling row; SURVEY §5 "many contacts"),
@@ -20,8 +19,8 @@ framework-native distributed components:
   The algorithm is accelerated projected gradient (APGD, Nesterov momentum
   with restart) on the convex QP  min ½z'Mz + q'z  s.t. z ≥ 0, whose KKT
   conditions are exactly the monotone LCP of the impact model. Fixed
-  iteration count, mask-padded — the same TPU design rules as the dense
-  solvers. `lcp_apgd` is the single-device reference implementation used for
+  iteration count, mask-padded — the same fixed-shape design rules as the
+  dense solvers. `lcp_apgd` is the single-device reference implementation used for
   verification and as a batched presolve.
 """
 
@@ -34,10 +33,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -56,8 +51,8 @@ def initialize(coordinator_address: Optional[str] = None,
 
 def host_scenario_mesh(n_hosts: Optional[int] = None,
                        devices=None) -> Mesh:
-    """2-D ("host", "scenario") mesh. With real multi-process TPU, rows map
-    to processes (DCN) and columns within a slice (ICI); under a virtual
+    """2-D ("host", "scenario") mesh. In a multi-process run, rows map to
+    processes and columns to the devices of one process; under a virtual
     flat device list the same layout validates the sharding program."""
     devs = list(devices if devices is not None else jax.devices())
     nh = n_hosts or max(1, jax.process_count())
@@ -133,10 +128,7 @@ def _apgd_body(matvec, q, mask, L, z0, iters, axis=None):
 
     t0 = jnp.asarray(1.0, dtype)
     if axis is not None:
-        try:
-            t0 = jax.lax.pcast(t0, to="varying")
-        except (AttributeError, TypeError):  # older jax: pvary(x, axis)
-            t0 = jax.lax.pvary(t0, axis)
+        t0 = jax.lax.pcast(t0, axis, to="varying")
     (z, _, _), _ = jax.lax.scan(
         body, (z0, z0, t0), None, length=iters
     )
@@ -187,7 +179,7 @@ def lcp_apgd_sharded(M, q, mask, mesh: Mesh, axis: str = "solver",
         )
 
     pr = P(axis)
-    f = shard_map(
+    f = jax.shard_map(
         solve_local,
         mesh=mesh,
         in_specs=(P(axis, None), pr, pr, pr, P(None)),

@@ -4,8 +4,8 @@ The reference is single-process/single-thread (SURVEY.md §2.6); the scaling
 axes are native to this framework:
 
 * `scenario` — data-parallel axis: thousands of independent rollouts/MPC
-  solves batch per chip via `vmap` and shard across chips via `shard_map`
-  (ICI collectives within a slice, DCN across hosts).
+  solves batch per device via `vmap` and shard across devices via
+  `shard_map`.
 * future `solver` axis — large LCP blocks sharded with psum-reduced products.
 
 Helpers here build the mesh, shard batched States, and run
@@ -84,8 +84,6 @@ def sharded_mpc_sweep(prob, batched_states, cost, cost_final, mesh,
     line-search trip counts are independent; per-member semantics are
     identical to `vmap(solve)`.
     """
-    from jax.experimental.shard_map import shard_map
-
     from ..mpc import contact_mpc
 
     state_specs = jax.tree_util.tree_map(
@@ -96,11 +94,10 @@ def sharded_mpc_sweep(prob, batched_states, cost, cost_final, mesh,
         res = contact_mpc.solve_batch(
             prob, states_shard, cost, cost_final, us0=us0, n_iters=n_iters
         )
-        # n_iters is declared replicated (P()) below under check_rep=False;
+        # n_iters is declared replicated (P()) below under check_vma=False;
         # reduce it across shards so that claim holds by construction even
         # if the solver's iteration accounting becomes data-dependent
-        # (ADVICE r3: a per-device value would silently be whichever shard
-        # XLA picks)
+        # (a per-device value would silently be whichever shard XLA picks)
         return res._replace(
             n_iters=jax.lax.pmax(res.n_iters, "scenario")
         )
@@ -115,9 +112,9 @@ def sharded_mpc_sweep(prob, batched_states, cost, cost_final, mesh,
     )
 
     run = jax.jit(
-        shard_map(
+        jax.shard_map(
             local, mesh=mesh, in_specs=(state_specs,),
-            out_specs=out_specs, check_rep=False,
+            out_specs=out_specs, check_vma=False,
         )
     )
     return run(batched_states)

@@ -8,7 +8,7 @@ walls at z = ±1.
 
 The reference plugin finds the ellipsoid's supporting point against each
 plane by a (theta, phi) grid search + Newton polish
-(ellipse-plane-coldet-plugin.cpp:131-210). The TPU-native kernel uses the
+(ellipse-plane-coldet-plugin.cpp:131-210). The batched kernel uses the
 closed form instead: the support point of the ellipsoid x^T diag(a,b,c)^-2 x
 = 1 in direction d is p = (a^2 d_x, b^2 d_y, c^2 d_z) / |(a d_x, b d_y,
 c d_z)| — exact, branch-free, and identical to the converged Newton polish.

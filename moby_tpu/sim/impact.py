@@ -19,7 +19,7 @@ Mirrors the reference's live solver path
 4. Poisson restitution with the conditional second impact solve
    (`apply_restitution` + re-solve, src/ImpactConstraintHandler.cpp:577-602).
 
-TPU design: one *joint* LCP over all islands instead of per-island solves.
+Fixed-shape design: one *joint* LCP over all islands instead of per-island solves.
 For the convex QP model the two are trajectory-equivalent: the joint system is
 block-diagonal across islands and the per-body wrench of any LCP solution is
 unique, so velocity updates match. Inactive islands are masked out exactly as
@@ -263,11 +263,12 @@ def gc_inv_inertia(scene: sc.Scene, st, quat_b):
         m = ent.model
         q = st.q_art[ent.q_off : ent.q_off + m.nq]
         H = art_dyn.crb(m, q)
-        # SPD joint-space inverse: on the f32 TPU route LAPACK's
+        # SPD joint-space inverse: on the f32 route LAPACK's
         # `jnp.linalg.inv` lowers to an LU whose traced-index row swaps emit
-        # chains of (B, 1, 1) dynamic-update-slices — 18%+ of the ur10 MPC
-        # sweep's device time. The fused Gauss–Jordan needs no pivoting on
-        # SPD H; f64 (CPU regression mode) keeps LAPACK bit-exactness.
+        # chains of (B, 1, 1) dynamic-update-slices, which a profile of the
+        # arm MPC sweep found costly before the GPU port (not yet measured
+        # on the GPU). The fused Gauss–Jordan needs no pivoting on SPD H;
+        # f64 (CPU regression mode) keeps LAPACK bit-exactness.
         if jnp.dtype(dtype) == jnp.float32:
             from ..solvers.lcp import gj_invert_pd
 

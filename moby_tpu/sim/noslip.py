@@ -18,7 +18,7 @@ cs,ct = −Y^{-1}(X·v + X·inv(M)·Q'·[cn; l]).
 Restitution (the no-slip variant `apply_restitution(epd)`): cn,l scale by
 epsilon, cs,ct reset to zero; conditional second solve.
 
-TPU form: the greedy selection is a fori_loop over contact slots updating
+Fixed-shape form: the greedy selection is a fori_loop over contact slots updating
 boolean masks (2 masked-Cholesky probes per slot); all solves are
 masked/fixed-shape.
 """

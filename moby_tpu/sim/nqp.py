@@ -23,7 +23,7 @@ constraint velocities, mu_visc_i = (Cs_v_i^2 + Ct_v_i^2) * mu_viscous_i^2
 normal velocity of a frictionless solve (`solve_lcp`,
 src/ImpactConstraintHandler.cpp:1480-1527).
 
-TPU-native design: instead of the reference's IPOPT interior-point solve
+Fixed-shape design: instead of the reference's IPOPT interior-point solve
 (dynamic iteration counts, line searches, sparse factorizations), we solve
 the convex cone program with a fixed-shape augmented-Lagrangian / accelerated
 projected gradient (ALM-APGD) scheme:

@@ -172,15 +172,11 @@ def solve_lcp_diff_mpc(M, q, mask, z0, skip):
 
 
 def _mpc_forward(M, q, mask, z0, skip):
-    # deliberately NOT the full `_solve_accel`: MPC impact LCPs are small
-    # (single-digit active sets) and sit inside an H=50 rollout scanned 4+
-    # iLQR iterations deep — a Pallas launch per step costs more than the
-    # straggler decoupling buys. BPP with fused-GJ sub-solves + one lcp_fast
-    # fallback is the lean path (the GJ route arrives via solve_principal).
-    return _mpc_xla(M, q, mask, z0, skip)
-
-
-def _mpc_xla(M, q, mask, z0, skip):
+    # deliberately NOT the full `solve_lcp` cascade: MPC impact LCPs are
+    # small (single-digit active sets) and sit inside an H=50 rollout
+    # scanned 4+ iLQR iterations deep, so the nested regularization sweeps
+    # would dominate. BPP with fused-GJ sub-solves (the GJ route arrives via
+    # solve_principal), then shallow regularized BPP rungs, is the lean path.
     dtype = M.dtype
     Mp, qp = lcp_mod.pad_lcp(M, q, mask)
     m_active = jnp.sum(mask).astype(dtype)
@@ -193,9 +189,10 @@ def _mpc_xla(M, q, mask, z0, skip):
     # a capped-out/failed solve falls through the cascade below
     import os
 
-    # measured on the ur10 MPC sweep (2026-08-21): 12 beats 8 (fails too
-    # often -> deeper stages fire) and 16/24 (lock-step iterations waste);
-    # stage-2's regularized BPP catches what 12 iterations can't
+    # chosen on the arm MPC sweep before the GPU port (not yet measured on
+    # the GPU): 12 beat 8 (fails too often -> deeper stages fire) and 16/24
+    # (lock-step iterations waste); stage-2's regularized BPP catches what
+    # 12 iterations can't
     bpp_iters = int(os.environ.get("MOBY_MPC_BPP_ITERS", "12"))
     z_bp, ok_bp = lcp_mod.lcp_bpp(
         M, q, mask, z0=z0, skip=skip, max_iters=bpp_iters,
@@ -203,40 +200,20 @@ def _mpc_xla(M, q, mask, z0, skip):
         else None,
     )
     ok_bp = ok_bp & lcp_mod._verify(Mp, qp, z_bp, mask, check_tol)
-    # optional per-problem Pallas PPM rescue between stage 1 and the
-    # regularized stages (MOBY_MPC_PALLAS=1): each grid program runs
-    # exactly its own pivot count, so one straggler member stops
-    # lock-stepping the whole batch through regularized BPP iterations —
-    # the decoupling lever for large-B scaling (the same kernel the
-    # non-MPC `_solve_accel` cascade uses)
-    if os.environ.get("MOBY_MPC_PALLAS", "0") == "1":
-        from . import pallas_lcp
-
-        interp = jax.default_backend() == "cpu"
-        m_eff = mask & ~skip & ~ok_bp
-        z0_eff = None if z0 is None else jnp.where(m_eff, z0, 0.0)
-        z_pl, done_pl = pallas_lcp.ppm_lcp_one(M, q, m_eff, z0=z0_eff,
-                                               interpret=interp)
-        ok_pl = (done_pl & lcp_mod._verify(Mp, qp, z_pl, m_eff, check_tol)
-                 & ~ok_bp & ~skip & jnp.any(m_eff))
-        z_bp = jnp.where(ok_pl, z_pl, z_bp)
-        ok_bp = ok_bp | ok_pl
     # stage 2: single-λ Tikhonov BPP. Degenerate active sets (the routine
     # failure of the rank-deficient impact LCPs) become strictly monotone
     # under M+λI, where BPP converges in a handful of iterations;
     # acceptance verifies against the REGULARIZED problem, exactly as the
     # reference's regularized wrappers do (src/LCP.cpp:239-260). This
     # stage is ~100x shallower than the full Tikhonov/lcp_fast sweep that
-    # otherwise fires lock-step across the batch on every degenerate step
-    # (measured 5x wall-time of the whole ur10 MPC sweep).
+    # otherwise fires lock-step across the batch on every degenerate step.
     # stage-2 regularizer: 10·sqrt(eps)·|M| (MOBY_MPC_LAM_SCALE overrides
-    # the 10). Measured on the ur10 real-hull workload (2026-08-21): at 1.0
-    # the near-coplanar 4-point wrist manifolds still fail the regularized
-    # BPP and the full Tikhonov rescue fires lock-step every sweep (25.2
-    # solves/s); at 10 stage 2 absorbs them (104.9 solves/s) with member
-    # costs unchanged to 0.5% and a CPU f64 oracle mean within 5% (local
-    # iLQR branch scatter, same sign/magnitude at both settings). Within
-    # the reference's own expanding Tikhonov sweep range
+    # the 10). Chosen on the arm real-hull workload before the GPU port
+    # (not yet measured on the GPU): at 1.0 the near-coplanar 4-point wrist
+    # manifolds still failed the regularized BPP and the full Tikhonov
+    # rescue fired lock-step every sweep; at 10 stage 2 absorbed them with
+    # member costs unchanged to 0.5% and a CPU f64 oracle mean within 5%.
+    # Within the reference's own expanding Tikhonov sweep range
     # (lcp_*_regularized, src/LCP.cpp:353-487).
     lam_scale = float(os.environ.get("MOBY_MPC_LAM_SCALE", "10.0"))
     lam = (
@@ -255,14 +232,14 @@ def _mpc_xla(M, q, mask, z0, skip):
     else:
         ok_2 = ok_bp
         z = z_bp
-    # stages 3..: shallow Tikhonov LADDER of regularized BPPs — the r5
-    # redesign of the rescue tail, shaped by on-device stage accounting
-    # (scripts/ur10_cascade_ab.py, 2026-08-21, B=256 real hulls, recording
-    # rollout): the full-depth `lcp_fast` stage cost 338 ms and rescued 1
-    # member in 256; the production Tikhonov/lcp_fast sweep cost 2209 ms of
-    # the 2731 ms rollout (81%) and fired for ~30% of members. Each ladder
-    # rung is one λ-regularized 12-iter BPP (~60 ms lock-step), with λ
-    # growing geometrically — the same expanding-λ acceptance semantics as
+    # stages 3..: shallow Tikhonov LADDER of regularized BPPs, shaped by
+    # stage accounting of the arm MPC sweep before the GPU port
+    # (scripts/ur10_cascade_ab.py; not yet measured on the GPU): there the
+    # full-depth `lcp_fast` stage rescued almost no member, and the
+    # Tikhonov/lcp_fast sweep took most of the rollout while firing for
+    # about a third of members. Each ladder rung is one λ-regularized
+    # 12-iter BPP, with λ growing geometrically — the same expanding-λ
+    # acceptance semantics as
     # the reference's regularized wrappers (src/LCP.cpp:353-487: accept the
     # first λ whose REGULARIZED solution verifies), but with the shallow
     # block-pivoting inner solver instead of O(n) Murty pivot chains.
@@ -353,9 +330,9 @@ def solve_lcp_given_fwd(M, q, mask, z):
         dz_A = -M_AA^{-1} (dM_A: z + dq_A),   dz_{A^c} = 0.
 
     Why it exists: `jacrev` through the replay step drags the whole step
-    graph through JAX's transpose machinery — on TPU that lowers to 5-D
-    transposed layouts, data-formatting copies and `add_any` accumulation
-    chains that dominate the (tiny-op, latency-bound) MPC backward sweep.
+    graph through JAX's transpose machinery — transposed layouts,
+    data-formatting copies and `add_any` accumulation chains in the
+    (tiny-op, latency-bound) MPC backward sweep.
     `jacfwd` pushes the 19 tangent basis vectors through the natural forward
     graph instead: no transposes, no cotangent accumulation. Under `jacfwd`'s
     vmap the primal operands stay unbatched, so the masked inverse here is

@@ -13,7 +13,7 @@ Two algorithms mirroring the reference's numerical core (`src/LCP.cpp`):
   sweeps λ = 10^k over an exponent range with solution verification
   (reference src/LCP.cpp:212-353, 353-487).
 
-TPU-native design: everything is fixed-shape and mask-padded so it `vmap`s
+Accelerator design: everything is fixed-shape and mask-padded so it `vmap`s
 over thousands of independent contact problems and `jit`s whole. A problem of
 true size m lives in an n-slot padded system; padded slots carry M_ii = 1,
 q_i = +1 which keeps them inert in every pivot rule (their w stays positive,
@@ -26,31 +26,11 @@ index vectors.
 
 from __future__ import annotations
 
-import os
-from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-
-def _pallas_route(dtype) -> bool:
-    """Route the production solve through the Pallas BPP kernel?
-
-    True on an accelerator backend at the device execution dtype (f32); the
-    f64 CPU regression path keeps the pure-XLA cascade. Override with
-    MOBY_PALLAS_LCP=0/1 (1 on CPU uses the interpreter — tests only).
-    """
-    env = os.environ.get("MOBY_PALLAS_LCP")
-    if env is not None:
-        return env not in ("0", "false", "")
-    if jnp.dtype(dtype) != jnp.float32:
-        return False
-    try:
-        return jax.default_backend() != "cpu"
-    except Exception:  # pragma: no cover - no backend at all
-        return False
 
 
 def _eps(dtype):
@@ -83,12 +63,12 @@ def gj_solve_masked(A, b, active):
     (near-)singular submatrix surfaces as a vanishing pivot, which we report
     via `ok` exactly like the `isfinite` guard on the LAPACK path.
 
-    Why not `jnp.linalg.solve`: on TPU, XLA lowers small LU factorizations to
-    a dynamic-slicing column `While` loop that cannot fuse, and the impact
-    cascade's pivot chains stack dozens of them back-to-back (the measured
-    ~99% of a cold contact step). This fixed-trip `fori_loop` of rank-1
+    Why not `jnp.linalg.solve`: this fixed-trip `fori_loop` of rank-1
     updates keeps every step a single fused elementwise+outer-product op that
-    batches over vmap for free.
+    batches over vmap for free, where a small LU factorization lowers to a
+    sequential pivoting loop, and the impact cascade's pivot chains stack
+    dozens of them back-to-back. The choice predates the GPU port and is
+    not yet measured on the GPU.
 
     Returns (x, ok).
     """
@@ -158,16 +138,22 @@ _GJ_BLOCK = int(_os.environ.get("MOBY_GJ_BLOCK", "8"))
 # masked systems at least this large route through the blocked elimination
 # (0 disables)
 _GJ_BLOCK_MIN_N = int(_os.environ.get("MOBY_GJ_BLOCK_MIN_N", "32"))
+# systems with more panels than this sweep them in a `fori_loop` instead of
+# unrolling: the unrolled n=2560 pile LCP made an HLO module too large to
+# compile within minutes
+_GJ_UNROLL_PANELS = 16
 
 
 def gj_solve_masked_blocked(A, b, active, bs: int = _GJ_BLOCK):
     """Blocked (panel) variant of `gj_solve_masked`: identical elimination
     order, but bs pivots are processed per sweep — the within-panel
     transform E comes from a tiny unrolled GJ and the trailing update is two
-    matmuls. n sequential full-matrix rank-1 passes (HBM-bandwidth-bound,
-    the measured bottleneck of the articulated impact LCPs) become n/bs
-    panel sweeps with MXU-shaped updates. Panel starts are static, so there
-    are no dynamic-update-slice kernels at all.
+    matmuls. n sequential full-matrix rank-1 passes (memory-bandwidth-bound)
+    become n/bs panel sweeps with matrix-product updates. Up to
+    `_GJ_UNROLL_PANELS` panels unroll with static starts (the last panel
+    may be narrower); larger systems are padded to a multiple of bs with
+    identity rows and loop over the panels. (Chosen for the articulated
+    impact LCPs before the GPU port; not yet measured on the GPU.)
 
     Equivalent to the unblocked elimination in exact arithmetic (Schur
     identity); vanishing-pivot rows are skipped inside the panel exactly as
@@ -176,21 +162,40 @@ def gj_solve_masked_blocked(A, b, active, bs: int = _GJ_BLOCK):
     n = b.shape[-1]
     dtype = A.dtype
     tiny = jnp.asarray(np.finfo(np.dtype(dtype)).tiny * 1e8, dtype)
-    minpiv = jnp.full(b.shape[:-1], jnp.inf, dtype)
-    for s in range(0, n, bs):
-        e = min(s + bs, n)
-        D = A[..., s:e, s:e]
-        E, mp = _gj_invert_small(D)
+
+    def panel(carry, s, w):
+        """Eliminate the w pivots starting at row s (s may be traced)."""
+        A, b, minpiv = carry
+        cut = lambda x, axis: jax.lax.dynamic_slice_in_dim(x, s, w, axis)
+        put = lambda x, v, axis: jax.lax.dynamic_update_slice_in_dim(
+            x, v, s, axis)
+        rows = cut(A, -2)
+        E, mp = _gj_invert_small(cut(rows, -1))
         minpiv = jnp.minimum(minpiv, mp)
-        R = E @ A[..., s:e, :]                      # transformed panel rows
-        bJ = jnp.einsum("...ij,...j->...i", E, b[..., s:e])
-        C = A[..., :, s:e]
+        R = E @ rows                                # transformed panel rows
+        bJ = jnp.einsum("...ij,...j->...i", E, cut(b, -1))
         # block rows are replaced, not updated: zero their factor
-        C = C.at[..., s:e, :].set(0.0)
+        C = put(cut(A, -1), jnp.zeros_like(E), -2)
         A = A - C @ R
         b = b - jnp.einsum("...ij,...j->...i", C, bJ)
-        A = A.at[..., s:e, :].set(R)
-        b = b.at[..., s:e].set(bJ)
+        return put(A, R, -2), put(b, bJ, -1), minpiv
+
+    n_panels = -(-n // bs)
+    carry = (A, b, jnp.full(b.shape[:-1], jnp.inf, dtype))
+    if n_panels <= _GJ_UNROLL_PANELS:
+        for s in range(0, n, bs):
+            carry = panel(carry, s, min(bs, n - s))
+    else:
+        pad = n_panels * bs - n
+        if pad:
+            lead = [(0, 0)] * (A.ndim - 2)
+            A = jnp.pad(A, lead + [(0, pad), (0, pad)])
+            A = A + jnp.diag(jnp.arange(n + pad) >= n).astype(dtype)
+            carry = (A, jnp.pad(b, lead + [(0, pad)]), carry[2])
+        carry = jax.lax.fori_loop(
+            0, n_panels, lambda i, c: panel(c, i * bs, bs), carry)
+    _, b, minpiv = carry
+    b = b[..., :n]
     ok = (minpiv > tiny) & jnp.all(jnp.isfinite(b), axis=-1)
     return b, ok
 
@@ -241,8 +246,9 @@ _GJ_OVERRIDE = None  # set True/False to force the sub-solve route (benchmarks)
 
 
 def _use_gj(dtype):
-    """Route masked sub-solves through the fused Gauss–Jordan on f32 (the TPU
-    execution dtype); keep LAPACK LU on f64 (CPU regression mode)."""
+    """Route masked sub-solves through the fused Gauss–Jordan on f32 (the
+    accelerator execution dtype); keep LAPACK LU on f64 (CPU regression
+    mode)."""
     if _GJ_OVERRIDE is not None:
         return _GJ_OVERRIDE
     return jnp.dtype(dtype) == jnp.float32
@@ -253,11 +259,12 @@ def gj_invert_pd(A):
     a positive-definiteness check: a symmetric matrix is PD iff every
     natural-order elimination pivot is positive (the Cholesky criterion).
 
-    Replaces `jnp.linalg.cholesky` + `jnp.linalg.inv` pairs on the TPU hot
-    path: XLA lowers those to LuDecompositionBlock/Cholesky custom-calls
-    that cost ~0.7 ms per (256, 12, 12) batch — two orders of magnitude over
-    these fused rank-1 updates (measured via the hlo_stats profile of the
-    MPC sweep, where the pair was 51% of device time). Returns (Ainv, pd_ok).
+    Replaces `jnp.linalg.cholesky` + `jnp.linalg.inv` pairs on the MPC hot
+    path: they lower to factorization custom-calls, which a profile of the
+    MPC sweep taken before the GPU port found far slower than these fused
+    rank-1 updates for small batched matrices. Not yet measured on the
+    GPU.
+    Returns (Ainv, pd_ok).
     """
     n = A.shape[-1]
     dtype = A.dtype
@@ -293,8 +300,8 @@ def solve_principal(M, rhs, nonbas, na_cap=None):
 
     The shared sub-solve of every pivoting method (the reference's
     `solve_fast`): builds the masked system (identity on inactive slots) and
-    routes it to the fused Gauss–Jordan on f32 (TPU) or LAPACK on f64 (CPU
-    regression mode). The masked systems are principal submatrices of the QP
+    routes it to the fused Gauss–Jordan on f32 (accelerator) or LAPACK on
+    f64 (CPU regression mode). The masked systems are principal submatrices of the QP
     KKT-LCP matrix, whose symmetric part is PSD, so unpivoted elimination is
     stable. Returns (x, ok).
 
@@ -733,7 +740,7 @@ def lcp_fast_sm(M, q, mask, z0=None, zero_tol=-1.0, refresh_every: int = 8,
     Pivot-for-pivot identical to :func:`lcp_fast` (same selection rules), but
     each pivot updates the inverse of the masked system with <= 4 rank-1
     corrections (O(n²) work, O(1) sequential depth) instead of re-solving an
-    LU per pivot — the fix for the latency-bound pivot chain on TPU. The
+    LU per pivot — aimed at the latency-bound pivot chain. The
     inverse is refreshed by a full solve every `refresh_every` pivots to
     bound drift; callers verify the solution and fall back to the exact
     solver on failure.
@@ -909,9 +916,8 @@ def lcp_bpp(M, q, mask, z0=None, zero_tol=-1.0, max_iters: int = 24,
 
     For the monotone QP-derived LCPs of the impact handler this converges in
     a handful of iterations independent of problem size — the sequential
-    pivot-chain depth (the measured bottleneck of a cold contact step on TPU,
-    where `lax.while_loop` iterations lock-step across the vmapped batch)
-    drops from O(m) to O(~10). The classic cycling safeguard applies: when
+    pivot-chain depth (`lax.while_loop` iterations lock-step across the
+    vmapped batch) drops from O(m) to O(~10). The classic cycling safeguard applies: when
     the infeasibility count fails to strictly decrease for `p_budget`
     consecutive iterations, fall back to switching only the first (least
     index) violator — Murty's method, finite for P-matrices.
@@ -1046,70 +1052,11 @@ def lcp_bpp(M, q, mask, z0=None, zero_tol=-1.0, max_iters: int = 24,
     return z, ok
 
 
-def _solve_accel(M, q, mask, z0, skip, xla_fallback):
-    """The accelerator (f32) solve cascade, shaped by on-device measurement:
-
-    1. **Batched BPP with fused Gauss–Jordan sub-solves** (`lcp_bpp`): ~6-10
-       lock-step iterations whose per-iteration work vectorizes across the
-       whole vmapped batch — 4.7x faster than LAPACK sub-solves and 12x
-       faster than a per-problem Pallas pivot kernel at B=512 on v5e (the
-       sequential grid serializes what vmap amortizes).
-    2. **Warm-started Pallas PPM kernel** (`pallas_lcp.ppm_lcp_one`), masked
-       to the problems BPP failed to verify: each grid program runs exactly
-       its own pivot count, so one hard problem no longer lock-steps the
-       whole batch through an O(m) pivot chain (the round-1 batch-scaling
-       inversion); already-solved problems reduce to a trivial-exit program.
-    3. The given XLA cascade (regularized Lemke etc.), skip-gated to
-       whatever still failed.
-    """
-    from . import pallas_lcp
-
-    dtype = M.dtype
-    if skip is None:
-        skip = jnp.array(False)
-    Mp, qp = pad_lcp(M, q, mask)
-    m_active = jnp.sum(mask).astype(dtype)
-    check_tol = (
-        m_active * _masked_norm_inf(Mp, mask) * float(np.sqrt(_eps(dtype)))
-    ).astype(dtype)
-
-    z_bp, ok_bp, piv_bp = lcp_bpp(M, q, mask, z0=z0, skip=skip,
-                                  with_pivots=True)
-    ok_bp = ok_bp & _verify(Mp, qp, z_bp, mask, check_tol)
-
-    interp = jax.default_backend() == "cpu"
-    m_eff = mask & ~skip & ~ok_bp
-    z0_eff = z0 if z0 is None else jnp.where(m_eff, z0, 0.0)
-    z_pl, done_pl = pallas_lcp.ppm_lcp_one(M, q, m_eff, z0=z0_eff,
-                                           interpret=interp)
-    ok_pl = (
-        done_pl & _verify(Mp, qp, z_pl, m_eff, check_tol) & ~ok_bp & ~skip
-        & jnp.any(m_eff)
-    )
-
-    z_fb, ok_fb = xla_fallback(M, q, mask, z0, skip | ok_bp | ok_pl)
-    z = jnp.where(ok_bp, z_bp, jnp.where(ok_pl, z_pl, z_fb))
-    z = jnp.where(mask & ~skip, z, 0.0)
-    stats = LCPStats(pivots=piv_bp, fallback=(~ok_bp & ~skip))
-    return z, (ok_bp | ok_pl | ok_fb) & ~skip, stats
-
-
 def solve_lcp_fast_lemke(M, q, mask, z0=None, skip=None, with_stats=False):
     """`lcp_fast` then `lcp_lemke_regularized` (the cascade used by the
     stabilization and no-slip paths, e.g. src/ConstraintStabilization.cpp:955),
-    with the BPP prepass + depth gating. On accelerator f32 the solve runs
-    the `_solve_accel` cascade (BPP-GJ -> Pallas PPM -> XLA)."""
-    if _pallas_route(M.dtype):
-        z, ok, stats = _solve_accel(M, q, mask, z0, skip, _solve_fast_lemke_xla)
-    else:
-        z, ok, stats = _solve_fast_lemke_xla(M, q, mask, z0, skip,
-                                             with_stats=True)
-    if with_stats:
-        return z, ok, stats
-    return z, ok
-
-
-def _solve_fast_lemke_xla(M, q, mask, z0=None, skip=None, with_stats=False):
+    behind a batched BPP prepass whose verified solutions skip both stages.
+    One route for every backend and dtype."""
     dtype = M.dtype
     Mp, qp = pad_lcp(M, q, mask)
     m_active = jnp.sum(mask).astype(dtype)
@@ -1139,22 +1086,12 @@ def solve_lcp(M, q, mask, z0=None, skip=None, with_stats=False):
     (reference src/ImpactConstraintHandlerQP.cpp:219-226):
     `lcp_fast_regularized(-20, 4, -8)` then `lcp_lemke_regularized` fallback.
 
-    On accelerator f32 the first stage is the VMEM-resident Pallas BPP+PPM
-    kernel (`pallas_lcp.bpp_lcp_one`) with in-kernel verification; the XLA
-    cascade only runs for problems the kernel could not verify, so the
-    semantics are unchanged (monotone problems have unique solutions).
-    On CPU f64 (the regression path) a BPP prepass plays the same role.
+    A batched BPP prepass (`lcp_bpp`, a handful of lock-step iterations)
+    solves the common case; the exact pivoting stages run skip-gated only
+    for problems whose BPP solution fails verification, so the semantics
+    are the reference cascade's (monotone problems have unique solutions).
+    One route for every backend and dtype.
     """
-    if _pallas_route(M.dtype):
-        z, ok, stats = _solve_accel(M, q, mask, z0, skip, _solve_lcp_xla)
-    else:
-        z, ok, stats = _solve_lcp_xla(M, q, mask, z0, skip, with_stats=True)
-    if with_stats:
-        return z, ok, stats
-    return z, ok
-
-
-def _solve_lcp_xla(M, q, mask, z0=None, skip=None, with_stats=False):
     dtype = M.dtype
     Mp, qp = pad_lcp(M, q, mask)
     m_active = jnp.sum(mask).astype(dtype)

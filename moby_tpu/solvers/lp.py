@@ -9,7 +9,7 @@ Mirrors the reference's `LP::lp_seidel` surface *and convention*
 In the reference this is Seidel's randomized incremental algorithm — a
 recursive, data-dependent CPU construction (used only from debug/dead code:
 the CCD comparison block is commented out, `CP.cpp` is not built). The
-TPU-native design replaces it with the classic **LP -> LCP reduction** solved
+fixed-shape design replaces it with the classic **LP -> LCP reduction** solved
 by our fixed-shape Lemke kernel (`solvers.lcp.lcp_lemke_regularized`):
 
 minimize (-c)'x under -A x >= -b; shift x = l + s (s >= 0), stack

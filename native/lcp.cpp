@@ -2,7 +2,7 @@
 //
 // An independent C++ implementation of the same algorithms the JAX solver
 // cascade uses (solvers/lcp.py), exposed over a C ABI for ctypes. Serves as
-//  (a) a cross-validation oracle for the batched TPU solver in tests, and
+//  (a) a cross-validation oracle for the batched JAX solver in tests, and
 //  (b) a fast host-side fallback for tiny one-off solves where device
 //      dispatch latency dominates.
 //

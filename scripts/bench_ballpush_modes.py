@@ -1,5 +1,5 @@
 """A/B of the ball-push contact-MPC sweep (the BASELINE north-star metric)
-across backward-pass modes on the attached TPU.
+across backward-pass modes on the attached GPU.
 
 Run from the repo root: python scripts/bench_ballpush_modes.py [modes...]
 modes: plain rr rr_hoist hoist (default: plain rr)
@@ -10,8 +10,9 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_moby")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 
 import numpy as np
 import jax
@@ -85,20 +86,6 @@ def main():
             out = sweep(batched)
         jax.block_until_ready(out)
         dt = time.time() - t0
-        # honest utilization: XLA's own FLOP estimate over wall time vs the
-        # v5e peak (197 TFLOP/s bf16 / ~half that for f32 MXU work). This
-        # is MFU, not duty cycle.
-        try:
-            ca = sweep.lower(batched).compile().cost_analysis()
-            ca = ca[0] if isinstance(ca, (list, tuple)) else ca
-            fl = float(ca.get("flops", 0.0))
-            if fl > 0:
-                print(f"   model FLOPs/sweep {fl/1e9:.2f} GF -> "
-                      f"{fl*reps/dt/1e12:.3f} TFLOP/s achieved "
-                      f"({100*fl*reps/dt/197e12:.2f}% of v5e bf16 peak)",
-                      flush=True)
-        except Exception as e:  # cost_analysis unsupported on some backends
-            print(f"   (cost_analysis unavailable: {e})", flush=True)
         print(f"{m}: {B * reps / dt:.1f} solves/s  (B={B}, compile+1st "
               f"{tc:.1f}s, mean cost {costs[m].mean():.6f})", flush=True)
     names = list(costs)

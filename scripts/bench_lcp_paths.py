@@ -51,7 +51,9 @@ def main():
     from moby_tpu import config as cfg
     from moby_tpu.geometry import narrowphase as nph
     from moby_tpu.sim import impact, kinematics, stepper
-    from moby_tpu.solvers import lcp, pallas_lcp
+    from moby_tpu.solvers import lcp
+
+    cfg.use_compile_cache()
 
     scene, st = build_scene()
     print(f"scene: K={scene.n_contacts} NV={scene.n_vars} NI={scene.n_ineq} "
@@ -122,11 +124,11 @@ def main():
               f"resid={float(resid):.2e}", flush=True)
         return dt
 
-    # pure-XLA production cascade (bpp -> fast_reg -> lemke_reg)
-    xla = jax.jit(jax.vmap(
-        lambda M, q, m, z, s: lcp._solve_lcp_xla(M, q, m, z0=z, skip=s)
+    # the production cascade (bpp -> fast_reg -> lemke_reg)
+    prod = jax.jit(jax.vmap(
+        lambda M, q, m, z, s: lcp.solve_lcp(M, q, m, z0=z, skip=s)
     ))
-    timeit("vmap solve_lcp XLA", xla, MM, qq, mask, z0, skip)
+    timeit("vmap solve_lcp", prod, MM, qq, mask, z0, skip)
 
     # BPP only (GJ sub-solves on f32)
     bpp = jax.jit(jax.vmap(lambda M, q, m, z, s: lcp.lcp_bpp(M, q, m, z0=z, skip=s)))
@@ -139,33 +141,6 @@ def main():
     ))
     timeit("vmap lcp_bpp LAPACK", bpp_lap, MM, qq, mask, z0, skip)
     lcp._GJ_OVERRIDE = None
-
-    interp = jax.default_backend() == "cpu"
-    if qq.dtype == jnp.float32 and os.environ.get("MOBY_BENCH_PALLAS", "1") != "0":
-        # pallas PPM kernel (round-1)
-        pal = jax.jit(lambda M, q, m: pallas_lcp.ppm_lcp_batched(M, q, m, interpret=interp))
-        timeit("pallas ppm_lcp_batched", pal, MM, qq, mask)
-
-        # pallas BPP+PPM kernel (experimental; may not compile on all
-        # Mosaic toolchains — see _bpp_kernel notes)
-        try:
-            pal2 = jax.jit(lambda M, q, m: pallas_lcp.bpp_lcp_batched(M, q, m, interpret=interp))
-            timeit("pallas bpp_lcp_batched", pal2, MM, qq, mask)
-        except Exception as e:
-            print(f"pallas bpp_lcp_batched: no-compile "
-                  f"({str(e).splitlines()[0][:60]})", flush=True)
-
-        # warm-started pallas PPM (the production stage 1)
-        pal3 = jax.jit(jax.vmap(
-            lambda M, q, m, z: pallas_lcp.ppm_lcp_one(M, q, m, z0=z, interpret=interp)
-        ))
-        timeit("pallas ppm_lcp_one (vmap)", pal3, MM, qq, mask, z0)
-
-        # full dispatched production path (pallas + gated XLA fallback)
-        prod = jax.jit(jax.vmap(
-            lambda M, q, m, z, s: lcp.solve_lcp(M, q, m, z0=z, skip=s)
-        ))
-        timeit("solve_lcp dispatched", prod, MM, qq, mask, z0, skip)
 
 
 if __name__ == "__main__":

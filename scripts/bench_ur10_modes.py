@@ -1,5 +1,5 @@
 """Quick A/B of the ur10 contact-MPC sweep across backward-pass modes
-(record/replay, hoisted linearization) on the attached TPU.
+(record/replay, hoisted linearization) on the attached GPU.
 
 Run from the repo root: python scripts/bench_ur10_modes.py [modes...]
 modes: plain rr rr_hoist (default: rr rr_hoist)
@@ -9,8 +9,9 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_moby")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 
 import xml.etree.ElementTree as ET
 

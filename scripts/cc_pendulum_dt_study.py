@@ -21,6 +21,8 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 
 GOLDEN = "/root/reference/regress/contact-constrained-pendulum.dat"
 

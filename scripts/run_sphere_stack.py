@@ -12,6 +12,8 @@ import numpy as np
 import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 
 from moby_tpu.core import scene as sc
 from moby_tpu.sim import stepper

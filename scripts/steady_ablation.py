@@ -1,6 +1,8 @@
 """Ablate the steady-state step cost at B=512 on the attached device."""
 import time, sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 import jax, jax.numpy as jnp
 
 from __graft_entry__ import _build_scene

@@ -1,5 +1,5 @@
 """A/B the ur10 recording-rollout wall time across MPC LCP-cascade configs
-on the attached TPU. The recording rollout is the dominant component of the
+on the attached GPU. The recording rollout is the dominant component of the
 ur10 sweep (r5 measurement: 1560 ms of a ~3 s sweep at B=256 proxy), so
 isolating which cascade stage carries it directs the fix for the
 lock-step-failure batch scaling (VERDICT r5 item #1).
@@ -12,9 +12,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_moby")
 os.environ.setdefault("MOBY_BENCH_UR10_GEOM", "real")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 
 import jax
 import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Per-component wall timing of the ur10 contact-MPC sweep on the TPU:
+"""Per-component wall timing of the ur10 contact-MPC sweep on the GPU:
 one warm-started recording rollout, one backward (replay) pass, and one
 controller (line-search) rollout — isolates which phase carries the
 dispatch-bound wall time. Run from the repo root."""
@@ -7,8 +7,9 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_moby")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 sys.path.insert(0, os.path.dirname(__file__))
 
 import numpy as np

@@ -23,8 +23,9 @@ Exit code 0 = cull verified.
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_moby")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 
 import numpy as np
 import jax

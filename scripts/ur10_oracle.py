@@ -3,13 +3,11 @@
 Runs the identical workload as scripts/bench_ur10_modes.py (same build(),
 same member perturbations) on the CPU double-precision path — LAPACK
 sub-solves, full production cascade — for the first ORACLE_N members, and
-prints their converged costs. Compare against the TPU sweep's costs for the
+prints their converged costs. Compare against the GPU sweep's costs for the
 same members (bench_ur10_modes prints its mean and first members under
 MOBY_UR10_PRINT_MEMBERS=1).
 
-This is the round-4 standard: every ur10 throughput number ships with an
-oracle cost check (benchmarks/README.md round-4 section) after round 3's
-fast-but-wrong episode.
+Every arm throughput number ships with this oracle cost check.
 
 Env: MOBY_BENCH_UR10_GEOM (proxy|real), MOBY_BENCH_UR10_B (build batch,
 default 256 — member perturbations depend on it), MOBY_UR10_ORACLE_N
@@ -26,6 +24,8 @@ jax.config.update("jax_enable_x64", True)
 
 sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp

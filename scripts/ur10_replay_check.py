@@ -1,12 +1,12 @@
 """Control-replay oracle for the ur10 contact-MPC sweep: the strongest
 cost-parity check.
 
-Phase A (this process, attached TPU): run the production sweep, save the
+Phase A (this process, attached GPU): run the production sweep, save the
 optimized control sequences + reported costs of the first N members.
 Phase B (spawned CPU f64 child): rebuild the scene in double precision and
 ROLL OUT those exact controls through the strict dynamics (full production
 LCP cascade, LAPACK sub-solves, no MPC shortcuts), recomputing each
-member's cost. If the TPU-reported cost is genuinely achieved physics (not
+member's cost. If the GPU-reported cost is genuinely achieved physics (not
 an artifact of over-regularized contact), the f64-replayed cost of the SAME
 controls matches it closely — this catches soft-contact inflation that a
 solve-vs-solve comparison (both local optima) cannot.
@@ -19,8 +19,9 @@ import os
 import subprocess
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_moby")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from moby_tpu import config  # noqa: E402
+config.use_compile_cache()
 sys.path.insert(0, os.path.dirname(__file__))
 
 import numpy as np
@@ -50,7 +51,7 @@ def phase_a():
     np.savez(NPZ,
              us=np.asarray(res.us[:N], np.float64),
              cost=np.asarray(res.cost[:N], np.float64))
-    print("TPU costs:", " ".join(f"{c:.4f}" for c in np.asarray(res.cost[:N])),
+    print("GPU costs:", " ".join(f"{c:.4f}" for c in np.asarray(res.cost[:N])),
           flush=True)
 
     env = dict(os.environ)
@@ -76,7 +77,7 @@ def phase_b():
 
     data = np.load(NPZ)
     us = jnp.asarray(data["us"])          # (N, H, nu) f64
-    tpu_cost = data["cost"]
+    dev_cost = data["cost"]
     N = us.shape[0]
     B = int(os.environ.get("MOBY_BENCH_UR10_B", "256"))
     prob, batched, cost, cost_final, _ = build(B)
@@ -96,11 +97,11 @@ def phase_b():
     replayed = np.asarray(jax.vmap(rollout_cost)(x0s, us))
     print("f64-replayed costs:",
           " ".join(f"{c:.4f}" for c in replayed))
-    rel = np.abs(replayed - tpu_cost) / np.maximum(np.abs(replayed), 1e-9)
+    rel = np.abs(replayed - dev_cost) / np.maximum(np.abs(replayed), 1e-9)
     print("relative gap per member:",
           " ".join(f"{r:.4f}" for r in rel))
     print(json.dumps({
-        "tpu_mean": float(tpu_cost.mean()),
+        "dev_mean": float(dev_cost.mean()),
         "replayed_mean": float(replayed.mean()),
         "max_rel_gap": float(rel.max()),
     }))

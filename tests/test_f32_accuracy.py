@@ -1,9 +1,9 @@
-"""f32 (TPU execution dtype) trajectory-sanity harness.
+"""f32 (GPU execution dtype) trajectory-sanity harness.
 
 The golden-regression suite runs f64 on CPU; the benchmarks run f32 on the
-TPU (`bench.py` conditions). These tests run the same scenes at f32 — which
+GPU (`bench.py` conditions). These tests run the same scenes at f32 — which
 also exercises the fused Gauss–Jordan sub-solve route (`lcp._use_gj`) that
-the TPU production path uses — and assert bounded drift against the f64
+the GPU production path uses — and assert bounded drift against the f64
 trajectory plus physical invariants (resting heights, no energy blow-up).
 
 Mirrors the reference's implicit contract that trajectories are stable at

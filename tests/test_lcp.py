@@ -239,3 +239,104 @@ class TestBPP:
                 np.asarray(Ms[i])[m][:, m], np.asarray(qs[i])[m],
                 np.asarray(zs[i])[m],
             )
+
+
+def _batch_problems(B, n, seed):
+    r = np.random.default_rng(seed)
+    A = r.normal(size=(B, n, n))
+    Ms = np.einsum("bij,bkj->bik", A, A) + 0.5 * np.eye(n)
+    return Ms, r.normal(size=(B, n))
+
+
+class TestSingleCascade:
+    """`solve_lcp` is one route for every backend and dtype: under vmap, in
+    f32, with skip gating and padding."""
+
+    def test_f32_matches_f64(self):
+        B, n = 5, 16
+        Ms, qs = _batch_problems(B, n, 13)
+        masks = jnp.ones((B, n), bool).at[:, 13:].set(False)
+        skip = jnp.zeros(B, bool)
+
+        def solve(dtype):
+            return jax.vmap(
+                lambda M, q, m, s: lcp.solve_lcp(M, q, m, z0=jnp.zeros_like(q),
+                                                 skip=s)
+            )(jnp.asarray(Ms, dtype), jnp.asarray(qs, dtype), masks, skip)
+
+        z, ok = solve(jnp.float32)
+        assert z.dtype == jnp.float32 and bool(jnp.all(ok))
+        z_ref, ok_ref = solve(jnp.float64)
+        assert bool(jnp.all(ok_ref))
+        np.testing.assert_allclose(np.asarray(z), np.asarray(z_ref),
+                                   atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(np.asarray(z)[:, 13:], 0.0)
+
+    def test_skip_yields_zero(self):
+        B, n = 3, 8
+        Ms, qs = _batch_problems(B, n, 17)
+        z, ok = jax.vmap(
+            lambda M, q: lcp.solve_lcp(M, q, jnp.ones(n, bool),
+                                       skip=jnp.array(True))
+        )(jnp.asarray(Ms, jnp.float32), jnp.asarray(qs, jnp.float32))
+        np.testing.assert_allclose(np.asarray(z), 0.0)
+        assert not bool(jnp.any(ok))
+
+
+class TestF32CascadeVsNative:
+    """The cascade in f32 (the GPU execution dtype) against the native C++
+    oracle in f64, at the sphere stack's LCP size (n=66) and on masked,
+    padded problems."""
+
+    @pytest.mark.parametrize("n,n_active,seed", [
+        (66, 66, 0), (66, 66, 1), (66, 40, 2), (96, 57, 3)])
+    def test_matches_native(self, n, n_active, seed):
+        from moby_tpu import native
+
+        r = np.random.default_rng(seed)
+        A = r.normal(size=(n, n))
+        M = A @ A.T / n + 0.5 * np.eye(n)
+        q = r.normal(size=n)
+        z_nat, ok_nat = native.lcp_solve(M[:n_active, :n_active], q[:n_active])
+        assert ok_nat
+        mask = jnp.arange(n) < n_active
+        z, ok = jax.jit(lcp.solve_lcp)(jnp.asarray(M, jnp.float32),
+                                       jnp.asarray(q, jnp.float32), mask)
+        assert bool(ok) and z.dtype == jnp.float32
+        z = np.asarray(z, np.float64)
+        np.testing.assert_allclose(z[n_active:], 0.0)
+        np.testing.assert_allclose(z[:n_active], z_nat,
+                                   atol=1e-4 * max(1.0, np.abs(z_nat).max()))
+
+
+class TestBlockedGJ:
+    """The blocked Gauss–Jordan sub-solve: unrolled panels for small
+    systems, a panel loop past `_GJ_UNROLL_PANELS`, identity padding when
+    n is not a multiple of the panel width, and masked (inactive) slots."""
+
+    @pytest.mark.parametrize("n,n_active", [(40, 40), (66, 50), (200, 200),
+                                            (203, 170)])
+    def test_matches_unblocked_and_lapack(self, n, n_active):
+        r = np.random.default_rng(n)
+        G = r.normal(size=(n, n))
+        act = np.arange(n) < n_active
+        M = G @ G.T / n + np.eye(n)
+        A = np.where(act[:, None] & act[None, :], M, 0.0) + np.diag(~act)
+        b = np.where(act, r.normal(size=n), 0.0)
+        args = (jnp.asarray(A, jnp.float32), jnp.asarray(b, jnp.float32),
+                jnp.asarray(act))
+        x_blk, ok_blk = jax.jit(lcp.gj_solve_masked_blocked)(*args)
+        x_gj, ok_gj = jax.jit(lcp.gj_solve_masked)(*args)
+        assert bool(ok_blk) and bool(ok_gj) and x_blk.shape == (n,)
+        x_ref = np.linalg.solve(A, b)
+        np.testing.assert_allclose(np.asarray(x_blk), x_ref, atol=2e-5)
+        np.testing.assert_allclose(np.asarray(x_blk), np.asarray(x_gj),
+                                   atol=2e-5)
+        np.testing.assert_allclose(np.asarray(x_blk)[~act], 0.0)
+
+    def test_singular_pivot_reported(self):
+        n = 136  # 17 panels: the looped route
+        A = jnp.eye(n, dtype=jnp.float32).at[100, 100].set(0.0)
+        _, ok = lcp.gj_solve_masked_blocked(A, jnp.ones(n, jnp.float32),
+                                            jnp.ones(n, bool))
+        assert not bool(ok)

@@ -1,4 +1,4 @@
-"""Runtime pair pooling (SceneBuilder.set_pair_pool) — the TPU-native
+"""Runtime pair pooling (SceneBuilder.set_pair_pool) — the fixed-shape
 redesign of the reference's sweep-and-prune broad phase
 (/root/reference/src/CCD.cpp:702-990): candidate pairs of a kind class are
 pruned each step to the cap nearest (bounding-sphere distance bound) and
@@ -83,7 +83,7 @@ class TestPooledVsDense:
         """A 12-sphere pile settles to rest on the pooled path (66
         candidate sphere-sphere pairs culled to 32 slots per step) without
         NaN or energy blow-up. Sized for the CPU f64 test backend — the
-        >=64-body data point runs on the TPU in bench.py (extra: pile64
+        >=64-body data point runs on the GPU in bench.py (extra: pile64
         fields) where the f32 GJ + compacted-BPP route is the production
         path for cap-bound piles."""
         n = 12

@@ -1,7 +1,7 @@
 """Multi-device sharding tests (8 virtual CPU devices via conftest).
 
 The reference has no distributed tests (nothing to distribute, SURVEY.md §4);
-these are the shard-count-invariance tests the TPU build requires: identical
+these are the shard-count-invariance tests the batched build requires: identical
 trajectories at 1 device and N devices.
 """
 
